@@ -1,4 +1,4 @@
-"""mcevidence_tpu — TPU-native Bayesian evidence estimation from MCMC chains.
+"""mcevidence_tpu — Bayesian evidence estimation from MCMC chains on a GPU.
 
 A from-scratch JAX/XLA/Pallas implementation of the Heavens et al. (2017,
 arXiv:1704.03472) kNN marginal-likelihood estimator with the full capability
@@ -7,8 +7,9 @@ MontePython / Cobaya / emcee-HDF5 / MultiNest / PolyChord / UltraNest /
 dynesty / ArviZ), burn-in, three thinning algorithms, auto- and
 cross-evidence, importance reweighting, prior volumes, CLI, a resident
 JSON-lines service, and the Planck full-grid batch driver — with the
-O(N^2 d) nearest-neighbour sweep running on the TPU MXU and scaling across
-chips via an ICI ring.
+O(N^2 d) nearest-neighbour sweep running on the accelerator (a fused
+Pallas kernel on the GPU) and scaling across devices via a ring of
+shards.
 """
 
 from ._version import __version__

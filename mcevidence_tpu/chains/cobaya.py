@@ -69,7 +69,11 @@ def sampled_params(root: str) -> Dict[str, Optional[Tuple[float, float]]]:
     path = updated_yaml_path(root)
     if path is None:
         raise FileNotFoundError(f"no Cobaya updated.yaml for root {root!r}")
-    import yaml
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(f"reading the Cobaya file {path} needs the "
+                          "'pyyaml' package, which is not installed") from e
     with open(path, "r") as fp:
         cfg = yaml.safe_load(fp)
     params = (cfg or {}).get("params") or {}

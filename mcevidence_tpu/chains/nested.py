@@ -155,15 +155,9 @@ def _read_header_names(path: str) -> List[str]:
 
 
 def _parse_after_header(path: str) -> np.ndarray:
-    """Numeric body of a header-led whitespace table (pandas C engine,
-    ~10x np.loadtxt on big files; same fallback chain as the CosmoMC
-    parser minus the native path, which cannot skip the bare header)."""
-    try:
-        import pandas as pd
-        return pd.read_csv(path, sep=r"\s+", header=None, skiprows=1,
-                           comment="#", dtype=np.float64).to_numpy()
-    except Exception:
-        return np.loadtxt(path, skiprows=1, ndmin=2)
+    """Numeric body of a header-led whitespace table (the native CosmoMC
+    parser cannot skip the bare header)."""
+    return np.loadtxt(path, skiprows=1, ndmin=2)
 
 
 def _ultranest_parse(path: str) -> Tuple[List[str], np.ndarray]:

@@ -17,7 +17,7 @@ In-memory ingestion accepts:
 
 Parsing is the hot host path for the Planck grid (tens of MB of text per
 model); ``parse_chain_file`` uses the native C++ parser when built (see
-``mcevidence_tpu/native``), falling back to pandas/numpy.
+``mcevidence_tpu/native``), falling back to ``np.loadtxt``.
 """
 
 from __future__ import annotations
@@ -75,13 +75,8 @@ def parse_chain_file(path: str) -> np.ndarray:
     from ..native import chainload
     arr = chainload.load_table(path)
     if arr is None:
-        # pandas C engine is ~10x faster than np.loadtxt on big chains
-        try:
-            import pandas as pd
-            arr = pd.read_csv(path, sep=r"\s+", header=None, comment="#",
-                              dtype=np.float64).to_numpy()
-        except Exception:
-            arr = np.loadtxt(path)
+        # native parser unavailable (no C++ compiler): numpy's own
+        arr = np.loadtxt(path, ndmin=2)
     if cpath:
         try:
             import threading
@@ -272,7 +267,11 @@ def _hdf5_to_chains(path: str, idchain: int = 0) -> List[np.ndarray]:
     ``flatlnprobability`` (reference examples.py:500-531): if the sampled
     density included a non-flat prior, ln Z inherits that prior ratio.
     """
-    import h5py
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"reading the emcee HDF5 file {path} needs the "
+                          "'h5py' package, which is not installed") from e
     try:
         fh = h5py.File(path, "r")
     except OSError as e:      # .h5-named but corrupt/not actually HDF5

@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from .ops.knn import ENGINES
+
 logger = logging.getLogger(__name__)
 
 
@@ -67,7 +69,7 @@ def compare_models(roots: Union[Dict[str, str], Sequence[str]], *,
     ``model, root, lnE (array over k=1..kmax-1), delta_lnE, PriorVol,
     ndim, N_read, N_used`` and, when ``error=True``, ``mean_lnE, err_lnE``.
     Failed models carry NaN lnE and the error string under ``error``.
-    Feed to ``pandas.DataFrame`` directly for a pretty table.
+    ``format_table`` renders them as text.
     """
     from .evidence import MCEvidence, evidence_with_error
     from .priors.params_info import params_info
@@ -210,8 +212,7 @@ def build_parser():
                    help="add per-chain scatter error bars")
     p.add_argument("--burn", dest="burnlen", type=float, default=0.0)
     p.add_argument("--thin", dest="thinlen", type=float, default=0.0)
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "pallas", "xla"])
+    p.add_argument("--engine", default="auto", choices=ENGINES)
     p.add_argument("--precision", default="refine",
                    choices=["device", "refine", "fast"])
     p.add_argument("--seed", type=int, default=None)
@@ -222,8 +223,6 @@ def build_parser():
 
 
 def main(argv=None) -> int:
-    from .utils.backend_probe import apply_forced_platform
-    apply_forced_platform()
     args = build_parser().parse_args(argv)
     from .utils.logging import configure
     configure(args.verbose)

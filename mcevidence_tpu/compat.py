@@ -2,7 +2,7 @@
 
 The reference exposes a chain-container class with mutable partitions and
 mixin methods (``MCSamples``/``SamplesMIXIN``, reference MCEvidence.py:
-107-606).  The TPU build's core is immutable/functional (chains/records.py,
+107-606).  This package's core is immutable/functional (chains/records.py,
 chains/preprocess.py); this module wraps it in the reference's mutable
 method surface so existing MCEvidence user code keeps working:
 

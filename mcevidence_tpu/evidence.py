@@ -5,11 +5,11 @@
 is the idiomatic functional core for users who already hold arrays.
 
 Pipeline per batch (reference call stack, SURVEY.md §3.1):
-  host ingest (burn/thin/split) -> whiten -> exact kNN (MXU) -> fused
+  host ingest (burn/thin/split) -> whiten -> exact kNN (device) -> fused
   log-space estimator.
 
 Precision modes:
-* "refine" (default): f32 MXU candidate selection + exact float64 distance
+* "refine" (default): f32 device candidate selection + exact float64 distance
   refinement + float64 estimator — matches a float64 sklearn/numpy oracle to
   ~1e-9 in ln Z (the <1e-6 parity target, BASELINE.md).
 * "fast": everything stays on device in float32 (bench / production mode).
@@ -28,7 +28,7 @@ from .chains.preprocess import importance_sample
 from .chains.reader import ingest
 from .chains.records import ChainPair
 from .ops.estimator import log_evidence_from_knn_np
-from .ops.knn import exact_knn
+from .ops.knn import ENGINES, exact_knn
 from .ops.whiten import WhitenStats, apply_whiten, whiten_stats
 from .utils.batch import BatchPlan, make_batch_plan
 from .utils.logging import configure, verbosity_to_level
@@ -74,6 +74,7 @@ def evidence_fn(samples: np.ndarray,
     kmax = max(2, kmax)
     _check_mode(precision, PRECISIONS, "precision")
     _check_mode(covtype, COVTYPES, "covtype")
+    _check_mode(engine, ENGINES, "engine")
     samples = np.atleast_2d(np.asarray(samples, np.float64))
     n, ndim = samples.shape
     lnlike = np.asarray(lnlike, np.float64).reshape(n)
@@ -153,10 +154,10 @@ class MCEvidence:
         reference MCEvidence.py:694).
     :param seed: RNG seed for split / Poisson thinning / random subsampling
         (the reference uses the unseeded global RNG — quirk Q8).
-    :param precision: 'refine' (float64-parity, default) or 'fast' (f32).
-    :param engine: kNN selection engine: 'auto', 'pallas' (k-dependent
-        dispatch between the exact and binned kernels), 'pallas_exact',
-        'pallas_binned', or 'xla'.
+    :param precision: 'refine' (float64-parity, default), 'device'
+        (double-float refinement on device) or 'fast' (f32).
+    :param engine: kNN selection engine: 'auto' (the Triton kernel on a
+        GPU, 'xla' on the CPU), 'triton' or 'xla'.
     """
 
     def __init__(self, method, ischain: bool = True,
@@ -184,6 +185,7 @@ class MCEvidence:
 
         _check_mode(precision, PRECISIONS, "precision")
         _check_mode(covtype, COVTYPES, "covtype")
+        _check_mode(engine, ENGINES, "engine")
         self.split = split
         self.covtype = covtype
         self.nbatch = nbatch

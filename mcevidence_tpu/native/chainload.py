@@ -5,7 +5,7 @@ model (the reference leans on ``np.loadtxt``, its slowest host path —
 MCEvidence.py:560-565).  ``libchainload.so`` (see ``chainload.cpp``) mmaps the
 file and parses floats in parallel-friendly single-pass C++.  If the library
 has not been built, ``load_table`` returns None and callers fall back to
-pandas/numpy.
+``np.loadtxt``.
 
 Build (done automatically on first import when a compiler is present):
     g++ -O3 -march=native -shared -fPIC chainload.cpp -o libchainload.so

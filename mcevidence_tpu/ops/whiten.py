@@ -172,7 +172,7 @@ def whiten_moments(samples: jnp.ndarray, axis_name: Optional[str] = None):
 
     For ``shard_map`` execution: each shard contributes (n, sum x, sum x x^T)
     and the moments are combined with ``psum`` over ``axis_name`` — the
-    TPU-native replacement for gathering all samples to compute ``np.cov``
+    device-native replacement for gathering all samples to compute ``np.cov``
     (SURVEY.md §7 step 6).  Returns the (d, d) covariance (ddof=1).
     """
     n = jnp.asarray(samples.shape[0], dtype=samples.dtype)

@@ -34,9 +34,9 @@ def _make_vgrad(lnprob: Callable):
 
     # NUTS is a sequential host-driven recursion over tiny (ndim,) states:
     # pin the gradient evaluations to the in-process CPU backend — per-step
-    # dispatch to a remote/relay accelerator costs orders of magnitude more
-    # than the math (the produced CHAIN feeds the TPU estimator; sampling
-    # itself is a validation utility, like the reference's PyStan leg).
+    # dispatch to an accelerator costs more than the math (the produced
+    # CHAIN feeds the device estimator; sampling itself is a validation
+    # utility, like the reference's PyStan leg).
     # CAVEAT: jax.default_device is a soft default — if ``lnprob`` closes
     # over arrays already committed to an accelerator, execution follows
     # the committed operands; the first-call timing check surfaces that.

@@ -1,10 +1,10 @@
-"""Single-chip N-scaling envelope (VERDICT r4 item 4).
+"""Single-device N-scaling envelope.
 
 Measures the fast and device-refine paths end-to-end (fresh host prep +
-H2D + device program + fetch, NOT scan-amortized) at growing N until the
-requested ceiling, and prints the HBM shape-math plan next to each
-measured point so the guard's constants can be sanity-checked against
-reality.  Extends the docs/KERNEL_NOTES.md envelope table past 2^18.
+host-to-device copy + device program + fetch) at growing N until the
+requested ceiling, and prints the device-memory shape-math plan next to
+each measured point so the guard's constants can be checked against
+reality.
 
 Usage: python scripts/bench_envelope.py [max_pow2 (default 20)] [d]
 """
@@ -19,7 +19,7 @@ sys.path.insert(0, ".")
 import jax  # noqa: E402
 
 from mcevidence_tpu.ops.pipeline import (  # noqa: E402
-    DEVICE_HBM_BUDGET_BYTES, device_refine_auto_evidence,
+    device_memory_budget_bytes, device_refine_auto_evidence,
     estimate_device_refine_hbm_bytes, fast_auto_evidence)
 from mcevidence_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 
@@ -43,8 +43,9 @@ def main():
     max_pow = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     d = int(sys.argv[2]) if len(sys.argv) > 2 else 8
     kmax = 5
+    budget = device_memory_budget_bytes()
     print(f"backend={jax.default_backend()} d={d} kmax={kmax} "
-          f"budget={DEVICE_HBM_BUDGET_BYTES / 2**30:.1f} GiB")
+          f"budget={'none' if budget is None else budget / 2**30} GiB")
     print(f"{'N':>9} {'plan GiB':>9} {'fast s':>8} {'fast pairs/s':>13} "
           f"{'device s':>9} {'dlnz fast-dev':>13}")
     for p in range(17, max_pow + 1):

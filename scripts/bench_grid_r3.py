@@ -3,7 +3,7 @@
 Runs the full synthetic Planck grid (scripts/synth_grid.py output) through
 ``planck.main`` with the NEW defaults (batched cells + device precision)
 N_RUNS times in one process — run 1 pays compiles/program loads, later
-runs are the steady-state number BASELINE.md quotes.  AllChains and
+runs are the steady-state number.  AllChains and
 SingleChains (-nc 4) both measured; outputs compared cell-by-cell against
 the reference outputs with scripts/compare_grids.py afterwards.
 

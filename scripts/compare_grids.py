@@ -19,7 +19,9 @@ import os
 import sys
 
 import numpy as np
-import pandas as pd
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from mcevidence_tpu.utils.table import read_csv  # noqa: E402
 
 
 def compare(ref_dir: str, ours_dir: str, tol: float = 1e-6) -> int:
@@ -35,15 +37,15 @@ def compare(ref_dir: str, ours_dir: str, tol: float = 1e-6) -> int:
         return 2
     maxd, ncells, worst = 0.0, 0, None
     for mode, f, g in pairs:
-        ref = pd.read_csv(f, index_col=0)
-        ours = pd.read_csv(g, index_col=0)
+        ref = read_csv(f)
+        ours = read_csv(g)
         cols = [c for c in ref.columns
                 if c == "AllChains" or c.startswith("chain")
                 or c in ("Mean_lnE_k1", "Err_lnE_k1") or c.startswith("lnE")]
         for model in ref.index:
             for c in cols:
-                a = ref.loc[model, c]
-                b = (ours.loc[model, c]
+                a = ref.at(model, c)
+                b = (ours.at(model, c)
                      if model in ours.index and c in ours.columns else np.nan)
                 if np.isnan(a) and np.isnan(b):
                     continue

@@ -22,7 +22,9 @@ import os
 import sys
 
 import numpy as np
-import pandas as pd
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from mcevidence_tpu.utils.table import read_csv  # noqa: E402
 
 GOLDEN = "/root/reference/planck_fullgrid_R2/AllChains/csv"
 # names present in BOTH frameworks' cosmological-parameter registries
@@ -34,15 +36,15 @@ NCHAINS = 4
 def golden_cells(csv_dir: str):
     cells = []
     for f in sorted(glob.glob(os.path.join(csv_dir, "*.csv"))):
-        df = pd.read_csv(f, index_col=0)
+        df = read_csv(f)
         ds = os.path.basename(f).split("mce_", 1)[-1][:-4]
-        for model, row in df.iterrows():
-            nr = str(row["N_read"]).strip().strip(",")
+        for i, model in enumerate(df.index):
+            nr = str(df["N_read"][i]).strip().strip(",")
             if not nr or nr == "nan":
                 continue
             n = sum(int(x) for x in nr.split(",") if x)
-            cells.append((ds, str(model), n, int(row["ndim"]),
-                          float(row["PriorVol"])))
+            cells.append((ds, model, n, int(df["ndim"][i]),
+                          float(df["PriorVol"][i])))
     return cells
 
 
@@ -64,9 +66,7 @@ def write_cell(outdir, ds, model, n, ndim, prior_vol, rng):
                   + 0.5 * ndim * np.log(2 * np.pi) + np.sum(np.log(sig)))
         h0 = rng.normal(70.0, 3.0, size=nc)     # derived H0* column
         cols = np.column_stack([np.ones(nc), neglnl, theta, h0])
-        df = pd.DataFrame(cols)
-        df.to_csv(f"{root}_{c}.txt", sep=" ", header=False, index=False,
-                  float_format="%.7e")
+        np.savetxt(f"{root}_{c}.txt", cols, fmt="%.7e")
     with open(root + ".ranges", "w") as f:
         for nm, mu, wd in zip(names, mean, widths):
             f.write(f"{nm} {mu - wd / 2:.6g} {mu + wd / 2:.6g}\n")

@@ -20,7 +20,7 @@ load-bearing), a non-Gaussian banana target with quadrature-exact truth,
 and an autocorrelated-ensemble caveat row (thinning recovers iid).
 
 Usage: python scripts/validation_study.py [n_seeds]   (writes markdown to
-stdout; ~a minute warm on one v5e chip).
+stdout).
 """
 
 from __future__ import annotations

@@ -89,27 +89,60 @@ def test_compile_shape_audit_records_buckets():
     assert n1 == 1 and n2 == 2, shape_report()
 
 
-def test_compilation_cache_withdrawn_on_cpu_fallback(monkeypatch, tmp_path):
-    """A provisional pre-init cache decision (TPU plugin registered, backend
-    not yet up) must be withdrawn once init lands on the CPU backend, so CPU
-    AOT executables never go into the accelerator cache dir."""
+def test_compilation_cache_withdrawn_on_cpu_fallback(monkeypatch):
+    """On the CPU backend no persistent cache is set up: a cached CPU
+    executable can carry machine features another host lacks."""
     import jax
 
     from mcevidence_tpu.utils import cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", None)
+        cache.enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir is None
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
 
-    # the test env's backend is CPU and already initialized; simulate the
-    # pre-init decision having provisionally enabled the cache
-    monkeypatch.setattr(cache, "_enabled", "provisional")
-    monkeypatch.setenv("MCE_COMPILE_CACHE", str(tmp_path / "cc"))
+
+def test_compilation_cache_default_is_fixed_checkout_path(monkeypatch):
+    """On an accelerator with JAX_COMPILATION_CACHE_DIR unset the cache
+    goes to <checkout>/.jax_cache, a path git ignores."""
+    import os
+
+    import jax
+
+    from mcevidence_tpu.utils import cache
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.CACHE_DIR == os.path.join(repo, ".jax_cache")
+    with open(os.path.join(repo, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", None)
+        cache.enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == cache.CACHE_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_compilation_cache_honours_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR decides the location: JAX reads it itself
+    and the code sets nothing over it."""
+    import jax
+
+    from mcevidence_tpu.utils import cache
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     old = jax.config.jax_compilation_cache_dir
     try:
         jax.config.update("jax_compilation_cache_dir", str(tmp_path / "cc"))
         cache.enable_compilation_cache()
-        assert cache._enabled is True
-        assert jax.config.jax_compilation_cache_dir is None
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
     finally:
         jax.config.update("jax_compilation_cache_dir", old)
-        cache._enabled = False
 
 
 def test_ranged_plans_never_emit_zero_size():

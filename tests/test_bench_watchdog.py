@@ -1,8 +1,6 @@
-"""bench.py relay-outage protection: the driver must always get ONE
-machine-readable JSON line, never an indefinite hang (BASELINE.md records
-multi-hour relay outages where even backend init blocks).  Round 4: the
-watchdog is phase-scoped (pet() re-arms per stage, ADVICE r3) and backend
-init happens via bounded subprocess probes with retries (VERDICT r3 item 2).
+"""bench.py failure protection: the caller must always get ONE
+machine-readable JSON line, never an indefinite hang.  The watchdog is
+phase-scoped (pet() re-arms per stage).
 """
 
 import json
@@ -49,16 +47,6 @@ def test_watchdog_cancel_is_clean():
     assert p.stdout.strip() == "clean"
 
 
-def test_probe_failure_emits_backend_init_failure_line():
-    # probe pointed at a python that cannot even start jax quickly: simulate
-    # by shrinking the timeout to ~0 — the probe must return None and main()
-    # must emit the phase-tagged failure line instead of hanging
-    p = _run("import bench; r = bench._probe_backend_with_retries("
-             "attempts=2, timeout=0.001, backoff=0.0); print(r)")
-    assert p.returncode == 0
-    assert p.stdout.strip().splitlines()[-1] == "None"
-
-
 def test_failure_line_schema_with_phase():
     import bench
     d = json.loads(bench._failure_line("boom", "backend-init"))
@@ -67,77 +55,12 @@ def test_failure_line_schema_with_phase():
     assert "phase" not in d2
 
 
-def test_last_healthy_bench_skips_degraded_records(tmp_path, monkeypatch):
-    """Round 4's official record (2.43e9 pairs/s, no flag) is 26x below the
-    healthy band; the healthy-band reference must skip it — and any record
-    that flagged ITSELF as a degraded window — or the degradation detector
-    would calibrate against a degraded baseline (VERDICT r4 item 1)."""
-    import bench
-    recs = {
-        "BENCH_r01.json": {"value": 5.0e10, "vs_baseline": 150.0},
-        # driver-wrapped format
-        "BENCH_r02.json": {"parsed": {"value": 6.47e10,
-                                      "vs_baseline": 190.0}},
-        # outage failure line: value 0, never counts
-        "BENCH_r03.json": {"value": 0.0, "vs_baseline": 0.0},
-        # the round-4 failure mode: silently degraded, >3x below best
-        "BENCH_r04.json": {"value": 2.43e9, "vs_baseline": 6.5},
-        # self-diagnosed degraded window (in band, but flagged)
-        "BENCH_r05.json": {"value": 3.0e10, "vs_baseline": 90.0,
-                           "degraded_window": True},
-    }
-    for name, rec in recs.items():
-        (tmp_path / name).write_text(json.dumps(rec))
-    monkeypatch.setattr(bench, "__file__", str(tmp_path / "bench.py"))
-    lh = bench._last_healthy_bench()
-    assert lh is not None and lh["round_file"] == "BENCH_r02.json"
-    assert lh["value"] == 6.47e10
-
-
-def test_is_degraded_rate_threshold():
-    import bench
-    healthy = {"value": 6.0e10}
-    assert bench._is_degraded_rate(2.43e9, healthy)        # the r4 case
-    assert not bench._is_degraded_rate(2.5e10, healthy)    # within 3x
-    assert not bench._is_degraded_rate(1.0, None)          # no history
-
-
-def test_failure_line_reports_last_healthy_bench():
-    # an outage failure line points the reader at the most recent healthy
-    # BENCH_r*.json (driver-wrapped format) so value=0 reads as transient,
-    # not as a framework regression
-    import bench
-    d = json.loads(bench._failure_line("relay unreachable", "backend-init"))
-    lh = d.get("last_healthy")
-    if lh is None:   # repo without bench artifacts (fresh clone)
-        return
-    assert lh["value"] > 0 and lh["round_file"].startswith("BENCH_r")
-
-
-def test_recert_merge_clears_stale_unreachable_error(tmp_path, monkeypatch):
-    """REGRESSION (round-5 review): a --merge over an artifact left by a
-    backend-unreachable run recomputed ok=true from the executed legs but
-    kept the stale top-level 'error' claim — a self-contradictory PASS
-    artifact for the exact audience (driver/judge) it exists for."""
-    import importlib.util
-    import json as _json
-
-    spec = importlib.util.spec_from_file_location(
-        "tpu_recert", os.path.join(REPO, "scripts", "tpu_recert.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    import mcevidence_tpu.utils.backend_probe as bp
-    monkeypatch.setattr(bp, "probe_backend_with_retries",
-                        lambda **kw: ("cpu", 1))
-    out = tmp_path / "CERT_test.json"
-    out.write_text(_json.dumps({
-        "round": 5, "ok": False,
-        "error": "backend unreachable (bounded subprocess probes)",
-        "legs": {"kernel_cert": {"ok": True, "rc": 0,
-                                 "n_pass": 1, "n_total": 1}}}))
-    rc = mod.main(["--merge", "--out", str(out), "--round", "5",
-                   "--skip-kernel-cert", "--skip-bench", "--skip-serve"])
-    data = _json.loads(out.read_text())
-    assert rc == 0 and data["ok"] is True
-    assert "error" not in data
-    assert data["legs"]["kernel_cert"]["ok"] is True   # legs preserved
+def test_bench_refuses_a_cpu_backend():
+    """bench.py measures a GPU: on the CPU it must print the failure line
+    and exit non-zero, never a CPU number under the device metric."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    p = subprocess.run([sys.executable, "bench.py"], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=120)
+    assert p.returncode != 0
+    d = json.loads(p.stdout.strip().splitlines()[-1])
+    assert d["value"] == 0.0 and "needs a GPU" in d["error"]

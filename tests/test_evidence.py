@@ -393,31 +393,28 @@ def test_device_overflow_falls_back_to_host_refine(rng, monkeypatch):
 
 
 def test_device_refine_packed2_engine_matches_xla(rng):
-    """The opt-in merge-cadence engine name plumbs through the device-refine
-    pipeline.  On the CPU test backend the split path substitutes XLA
-    selection (fused_refine_dotp's non-TPU branch), so this pins the engine
-    ARG plumbing + result; the Pallas branch itself is certified on chip
-    (scripts/tpu_kernel_cert.py packed2* checks, CERT_r05.json) and
-    verified at 3.1e-15 lnZ parity through the dp x ring grid path on
-    hardware (BASELINE.md round 5)."""
+    """The engine name plumbs through the device-refine pipeline: 'auto'
+    resolves to the platform's engine (xla on this CPU backend) and gives
+    the explicit engine's result."""
     from mcevidence_tpu.ops import pipeline
     theta, lnl = make_gaussian_chain(rng, n=300, ndim=4)
     got = pipeline.device_refine_evidence(theta, lnl, kmax=2,
-                                          engine="pallas_packed2")
+                                          engine="auto")
     want = pipeline.device_refine_evidence(theta, lnl, kmax=2, engine="xla")
     np.testing.assert_allclose(got, want, atol=1e-12)
 
 
 def test_device_hbm_guard_falls_back_to_host(rng, caplog, monkeypatch):
-    """The single-chip N ceiling (VERDICT r4 item 4): when the refinement's
-    (rows, k_sel, dpad) HBM plan exceeds the device budget, the call must
-    degrade to the host-refine path with a logged decision — never reach
-    the device program (where it would die as a mid-run XLA OOM)."""
+    """The single-device N ceiling: when the program's device-memory plan
+    exceeds the device budget, the call must degrade to the host-refine
+    path with a logged decision — never reach the device program (where it
+    would die as a mid-run XLA OOM)."""
     import logging
 
     from mcevidence_tpu.ops import pipeline
     theta, lnl = make_gaussian_chain(rng, n=600, ndim=3)
-    monkeypatch.setattr(pipeline, "DEVICE_HBM_BUDGET_BYTES", 10_000)
+    monkeypatch.setattr(pipeline, "device_memory_budget_bytes",
+                        lambda device=None: 10_000)
 
     def boom(*a, **k):
         raise AssertionError("device program dispatched past the HBM guard")
@@ -426,27 +423,47 @@ def test_device_hbm_guard_falls_back_to_host(rng, caplog, monkeypatch):
                          logger="mcevidence_tpu.ops.pipeline"):
         got = pipeline.device_refine_evidence(theta, lnl, kmax=2,
                                               engine="xla")
-    assert any("HBM" in r.message and "budget" in r.message
+    assert any("device memory" in r.message and "budget" in r.message
                for r in caplog.records)
     want = pipeline.host_refine_evidence(theta, lnl, kmax=2, engine="xla")
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
 def test_device_hbm_estimate_shape_math():
-    """The HBM plan: linear in N, dominated by the (rows, k_sel, dpad)
-    refinement temporaries; the Planck headline shape fits the default v5e
-    budget with wide margin, and the d=8 refine path's edge sits near
-    N ~ 2^23 (beyond it the guard must route to host refine)."""
-    from mcevidence_tpu.ops.pipeline import (DEVICE_HBM_BUDGET_BYTES,
+    """The device-memory plan: linear in N on the Triton engine (the
+    (rows, k_sel, dpad) refinement temporaries dominate); the xla engine
+    adds its (rows, 2048) f32 distance tile.  The budget is a share of
+    the device's reported bytes_limit: on an 80 GB card the Planck
+    headline shape fits with wide margin, and the xla engine's tile puts
+    the edge at N ~ 2^23."""
+    from mcevidence_tpu.ops.pipeline import (DEVICE_MEMORY_SHARE,
+                                             device_memory_budget_bytes,
                                              estimate_device_refine_hbm_bytes)
-    headline = estimate_device_refine_hbm_bytes(65536, 65536, 8, 9)
-    assert headline < DEVICE_HBM_BUDGET_BYTES / 10
+    budget = device_memory_budget_bytes(
+        _FakeDevice({"bytes_limit": 80 * 2 ** 30}))
+    assert budget == int(80 * 2 ** 30 * DEVICE_MEMORY_SHARE)
+    assert device_memory_budget_bytes(_FakeDevice(None)) is None
+    est = estimate_device_refine_hbm_bytes
+    headline = est(65536, 65536, 8, 9, engine="triton")
+    assert headline < budget / 100
     # ~linear growth in N (pow-2 buckets: exactly 2x per doubling)
-    assert estimate_device_refine_hbm_bytes(2 ** 20, 2 ** 20, 8, 9) \
-        == pytest.approx(2 * estimate_device_refine_hbm_bytes(
-            2 ** 19, 2 ** 19, 8, 9), rel=0.01)
-    assert (estimate_device_refine_hbm_bytes(2 ** 23, 2 ** 23, 8, 9)
-            > DEVICE_HBM_BUDGET_BYTES)
+    assert est(2 ** 20, 2 ** 20, 8, 9, engine="triton") == pytest.approx(
+        2 * est(2 ** 19, 2 ** 19, 8, 9, engine="triton"), rel=0.01)
+    # the xla path's distance tile, and the kernel's large-k route to it
+    tile = 2 ** 20 * 2048 * 4
+    assert est(2 ** 20, 2 ** 20, 8, 9) - est(
+        2 ** 20, 2 ** 20, 8, 9, engine="triton") == tile
+    assert est(2 ** 20, 2 ** 20, 8, 20, engine="triton") == est(
+        2 ** 20, 2 ** 20, 8, 20)
+    assert est(2 ** 22, 2 ** 22, 8, 9) < budget < est(2 ** 23, 2 ** 23, 8, 9)
     # REGRESSION (round-5 review): equal-size cross jobs (the even-N
     # --cross split, matched-size two-chain runs) allocate separate
     # rhi/rlo — the plan must charge the ref-coords term on the explicit
@@ -513,8 +530,8 @@ def test_device_retry_on_equidistant_ties(rng, caplog):
 
 
 def test_fused_refine_dotp_batch_matches_per_cell(rng):
-    """The kernel-level-batched pipeline (the non-relay batching vehicle,
-    ROADMAP item 2) agrees with per-cell dispatch exactly."""
+    """The batched device-refine pipeline agrees with per-cell dispatch
+    exactly."""
     import jax.numpy as jnp
 
     from mcevidence_tpu.ops.pipeline import (_device_refine_prepare,
@@ -567,23 +584,22 @@ def test_adversarial_inputs_graceful(rng):
     assert np.all(np.isnan(out))
 
 
-def test_pooled_staging_self_check(monkeypatch):
-    # ADVICE r3: pooling safety is proven at runtime, not assumed.  On this
-    # backend the copy must detach (check passes, buffers are reused); with
-    # a simulated aliasing backend pooling must turn itself off (fresh
-    # buffers per call), never corrupt.
+def test_pooled_staging_self_check(rng):
+    """Pooled staging buffers are reused, and a prepared cell's device
+    arrays never change when the next prep refills the same buffers (the
+    prep waits for its host-to-device copies before returning)."""
     from mcevidence_tpu.ops import pipeline
 
-    monkeypatch.setattr(pipeline, "_POOLING_OK", None)
-    assert pipeline._staging_copy_is_safe()
     a = pipeline._pooled("selfcheck", (8,), np.float32)
     b = pipeline._pooled("selfcheck", (8,), np.float32)
     assert a is b
-
-    monkeypatch.setattr(pipeline, "_POOLING_OK", False)
-    c = pipeline._pooled("selfcheck2", (8,), np.float32)
-    d = pipeline._pooled("selfcheck2", (8,), np.float32)
-    assert c is not d
+    chains = [make_gaussian_chain(np.random.default_rng(s), n=300, ndim=3)
+              for s in (1, 2)]
+    dev1, _ = pipeline._device_refine_prepare(*chains[0], None, 2, 4, "xla")
+    want = {k: np.array(v) for k, v in dev1.items()}
+    pipeline._device_refine_prepare(*chains[1], None, 2, 4, "xla")
+    for k, v in dev1.items():
+        np.testing.assert_array_equal(np.asarray(v), want[k])
 
 
 def test_device_ndim_over_layout_limit_falls_back(rng, caplog):

@@ -132,8 +132,8 @@ def test_exact_knn_guard_quiet_on_normal_data(rng, caplog):
 
 
 def test_xla_nonzero_padding_beyond_nr(rng):
-    """REGRESSION (round-4 review): knn_select_xla shares the Pallas
-    wrappers' nr contract (rows beyond nr are only 'never selected'), so
+    """REGRESSION (round-4 review): knn_select_xla shares the kernel
+    wrapper's nr contract (rows beyond nr are only 'never selected'), so
     its centring mean must exclude them too — garbage padding used to
     shift mu by the padding magnitude and corrupt every f32-centred
     coordinate."""
@@ -147,49 +147,3 @@ def test_xla_nonzero_padding_beyond_nr(rng):
     np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_idx))
     np.testing.assert_allclose(np.asarray(d2), np.asarray(want_d2),
                                rtol=4e-4, atol=2e-6)
-
-
-def test_pallas_dispatch_refine_routes_to_packed2(rng, monkeypatch):
-    """Round-5 adoption: the auto 'pallas' refine-path selection uses the
-    merge-cadence packed2 kernel (measured 1.12-1.17x the single-tile
-    packed kernel on chip); explicit engine names keep their kernels, and
-    fast mode (refine=False) keeps the exact kernel (quantized distances
-    must not be consumed directly)."""
-    import jax.numpy as jnp
-
-    import mcevidence_tpu.ops.knn_pallas as kp
-
-    calls = []
-
-    def fake(name):
-        def f(q, r, k, self_mode=False, nr=None, **kw):
-            calls.append(name)
-            nq = q.shape[0]
-            # valid in-range candidate indices; distances are recomputed
-            # in f64 by the refine stage so zeros are fine
-            idx = jnp.tile(jnp.arange(k, dtype=jnp.int32), (nq, 1))
-            return jnp.zeros((nq, k), jnp.float32), idx
-        return f
-
-    for attr in ("knn_select_pallas", "knn_select_pallas_packed",
-                 "knn_select_pallas_packed2", "knn_select_pallas_smalld"):
-        monkeypatch.setattr(kp, attr, fake(attr.replace("knn_select_pallas", "")
-                                           or "exact"))
-    monkeypatch.setattr(
-        kp, "knn_select_pallas_binned",
-        lambda q, r, k, self_mode=False, nr=None, packed=False, **kw:
-            fake("_binned")(q, r, k, self_mode=self_mode, nr=nr))
-
-    x = rng.normal(size=(64, 4))
-
-    def first_kernel(**kw):
-        calls.clear()
-        exact_knn(x, None, 3, **kw)
-        assert calls, "pallas select was never invoked"
-        return calls[0]
-
-    assert first_kernel(engine="pallas", refine=True) == "_packed2"
-    assert first_kernel(engine="pallas_packed", refine=True) == "_packed"
-    assert first_kernel(engine="pallas_packed2", refine=True) == "_packed2"
-    assert first_kernel(engine="pallas", refine=False) == "exact"
-    assert first_kernel(engine="pallas_exact", refine=True) == "exact"

@@ -182,7 +182,7 @@ def test_grid_batched_cross_matches_per_cell(minigrid, tmp_path):
     for col in ("N_read", "N_used"):
         assert list(out_bat[col]) == list(out_ref[col])
     # split mode: N_used lists both partitions
-    assert "," in out_bat["N_used"].iloc[0].rstrip(",")
+    assert "," in out_bat["N_used"][0].rstrip(",")
 
 
 def test_procs_launcher(minigrid, tmp_path):
@@ -259,7 +259,7 @@ def test_distributed_two_process(minigrid, tmp_path):
     workers = []
     for pid in range(2):
         env = dict(os.environ)
-        env.update(MCE_FORCE_PLATFORM="cpu",
+        env.update(JAX_PLATFORMS="cpu",
                    JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
                    JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid))
         workers.append(subprocess.Popen(
@@ -343,9 +343,9 @@ def test_corrupt_ranges_degrades_to_nan_row(minigrid, tmp_path, caplog,
                                      engine="xla", batch_cells=batch_cells)
     assert df is not None
     assert list(df.index) == ["base", "base_w"]
-    assert np.isfinite(df.loc["base", "AllChains"])
-    assert np.isnan(df.loc["base_w", "AllChains"])
-    assert df.loc["base_w", "PriorVol"] == 0
+    assert np.isfinite(df.at("base", "AllChains"))
+    assert np.isnan(df.at("base_w", "AllChains"))
+    assert df.at("base_w", "PriorVol") == 0
     assert any("params_info failed" in r.message for r in caplog.records)
     # the full grid run + aggregation survives it too
     outdir = str(tmp_path / "out_corrupt")
@@ -373,8 +373,8 @@ def test_corrupt_base_ranges_keeps_other_models(minigrid, caplog):
         df = planck.dataset_evidence(rootdir, ds, kmax=2, verbose=0,
                                      engine="xla")
     assert df is not None
-    assert np.isnan(df.loc["base", "AllChains"])
-    assert np.isfinite(df.loc["base_w", "AllChains"])
+    assert np.isnan(df.at("base", "AllChains"))
+    assert np.isfinite(df.at("base_w", "AllChains"))
     # the lost base normalization is announced (round-4 review finding)
     assert any("NOT normalized" in r.message for r in caplog.records)
 
@@ -437,3 +437,90 @@ def test_cli_kmax_validation(minigrid, tmp_path):
     with pytest.raises(SystemExit):
         planck.main(["-k", "1", "--rootdir", rootdir,
                      "-o", str(tmp_path)])
+
+
+def test_procs_worker_envs_one_card_each():
+    """--procs N on a GPU host: worker i sees only card i (of the cards
+    the parent may see), so no two JAX processes share a card."""
+    envs = planck._worker_envs(3, "", ["0", "2", "5"], {"A": "1"})
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["0", "2", "5"]
+    assert all(e["A"] == "1" for e in envs)
+    # pinned to cpu (or no card in sight): every worker shares the parent's
+    # environment, platform pin included
+    for platforms, gpus in (("cpu", ["0", "1"]), ("", [])):
+        envs = planck._worker_envs(4, platforms, gpus, {"A": "1"})
+        assert len(envs) == 4
+        assert all("CUDA_VISIBLE_DEVICES" not in e for e in envs)
+    assert planck._worker_envs(2, "cpu", [], {})[0]["JAX_PLATFORMS"] == "cpu"
+
+
+def test_procs_refuses_more_workers_than_cards():
+    with pytest.raises(SystemExit, match="--procs 3 exceeds the 2 visible"):
+        planck._worker_envs(3, "", ["0", "1"], {})
+    with pytest.raises(SystemExit, match="exceeds the 1 visible"):
+        planck._worker_envs(2, "cuda", ["7"], {})
+
+
+def test_visible_gpus_follows_cuda_visible_devices(monkeypatch):
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3, 1")
+    assert planck._visible_gpus() == ["3", "1"]
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert planck._visible_gpus() == []
+
+
+def test_tables_match_the_pandas_layout(tmp_path):
+    """The per-dataset csv is byte-identical to what pandas wrote for the
+    same table (NaN cells empty, shortest round-trip floats, quoted
+    strings), and reads back column for column."""
+    from mcevidence_tpu.utils.table import Table, read_csv
+    cols = {"AllChains": [-12.3456789012345, np.nan], "PriorVol": [1.0, 0.0],
+            "ndim": [4, 0], "N_read": ["600,", ""]}
+    t = Table(["base", "base_w"], cols)
+    t.to_csv(str(tmp_path / "a.csv"))
+    pd.DataFrame(cols, index=["base", "base_w"]).to_csv(
+        str(tmp_path / "b.csv"))
+    assert (tmp_path / "a.csv").read_bytes() == \
+        (tmp_path / "b.csv").read_bytes()
+    back = read_csv(str(tmp_path / "a.csv"))
+    assert back.index == ["base", "base_w"]
+    assert back.columns == list(cols)
+    np.testing.assert_array_equal(back["AllChains"], cols["AllChains"])
+    assert list(back["N_read"]) == ["600,", ""]
+    assert back.at("base", "PriorVol") == 1.0
+
+
+def test_table_plain_text_layout():
+    """Without the optional tabulate package the text table is aligned
+    columns with two-decimal floats and NaN spelled out."""
+    from mcevidence_tpu.utils.table import Table
+    t = Table(["base", "base_omegak"], {"AllChains": [-1.5, np.nan],
+                                       "ndim": [6, 7]})
+    assert t._plain_text().splitlines() == [
+        "             AllChains  ndim",
+        "base             -1.50     6",
+        "base_omegak        NaN     7",
+    ]
+
+
+def test_grid_device_deferred_cells_keep_their_inputs(tmp_path, monkeypatch):
+    """REGRESSION: per-cell device dispatches are all issued before any
+    fetch, and cells of one row bucket share pooled staging buffers; a
+    cell's host-to-device copy must finish before the next cell's prep
+    refills them.  Before the fix, later cells of a dataset ran on another
+    cell's coordinates (|dlnZ| up to ~2)."""
+    rng = np.random.default_rng(5)
+    rootdir = tmp_path / "grid"
+    ds = "plikHM_TT_lowTEB"
+    for model, ndim, n in [("base", 4, 1600), ("base_w", 5, 600)]:
+        d = rootdir / model / ds
+        d.mkdir(parents=True)
+        _write_chain(str(d / f"{model}_{ds}"), rng, ndim, n=n, nchains=4)
+    monkeypatch.setenv("MCE_GRID_QUANTUM", "1")
+    out_ref = planck.dataset_evidence(str(rootdir), ds, kmax=3, nchain=4,
+                                      verbose=0, engine="xla", cross=True,
+                                      seed=0)
+    out_dev = planck.dataset_evidence(str(rootdir), ds, kmax=3, nchain=4,
+                                      verbose=0, batch_cells=True,
+                                      precision="device", cross=True, seed=0)
+    for col in [f"chain{i}" for i in range(1, 5)]:
+        np.testing.assert_allclose(out_dev[col], out_ref[col], atol=1e-8)

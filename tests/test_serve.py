@@ -291,7 +291,7 @@ def test_serve_wedged_shutdown_returns_hard_exit_rc(monkeypatch):
 
     def fake_handle(req):
         if req.get("wedge"):
-            release.wait()          # a relay-wedged device call, in effigy
+            release.wait()          # a wedged device call, in effigy
             return {"id": req.get("id"), "ok": False, "error": "late"}
         return {"id": req.get("id"), "ok": True}
 
